@@ -1,4 +1,4 @@
-"""kit4b_tpu — TPU-native sequence-analysis framework.
+"""kit4b_tpu — JAX sequence-analysis framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the kit4b
 C++ bioinformatics toolkit (reference: github.com/kit4b/kit4b). See SURVEY.md

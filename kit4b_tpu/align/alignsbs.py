@@ -9,11 +9,11 @@ and report per-iteration counts of queries hitting >=1 target and
 targets hit by >=1 query. Iteration 0 is the original query set vs the
 original target set.
 
-TPU-first redesign: the reference re-aligns every iteration's query set
+Device redesign: the reference re-aligns every iteration's query set
 against every iteration's target set with host threads. Here the target
 *assembly* is indexed once and every iteration's sampled queries are
 aligned in one stream of fixed-shape device batches (one compile, full
-MXU occupancy); whether a query "hit a target" is then a host-side
+batches); whether a query "hit a target" is then a host-side
 interval-membership test of its accepted locus against that iteration's
 sampled target fragments — alignment work is O(total queries), not
 O(iterations x re-index).

@@ -2,7 +2,7 @@
 
 The reference collapses BOTH conversions into one suffix array (T->C and
 A->G simultaneously, libkit4b/SfxArray.cpp:511-535), leaving a 2-symbol
-alphabet whose k-mer buckets are enormous. The TPU-native redesign uses the
+alphabet whose k-mer buckets are enormous. This redesign uses the
 standard two-index scheme instead (as Bismark/BWA-meth do):
 
   watson-origin reads:  read C->T collapsed  vs  genome C->T collapsed

@@ -7,7 +7,7 @@ stride through the k-mer LUT, hits are chained along diagonals into local
 alignment blocks, blocks are scored by ungapped extension, and results are
 reported PSL-style and as SAM.
 
-TPU shape: seeding is one batched LUT gather per query chunk (the same
+Device shape: seeding is one batched LUT gather per query chunk (the same
 machinery as kalign's seed stage); chaining/scoring is a vectorized
 diagonal-sort on the host (hit counts are tiny relative to genome scale).
 Banded affine DP refinement arrives with the microInDel kernel.

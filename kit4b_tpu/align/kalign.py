@@ -1,4 +1,4 @@
-"""kalign: seed-and-extend short-read aligner (TPU-native engine).
+"""kalign: seed-and-extend short-read aligner (device engine).
 
 Mirrors the reference CKAligner semantics (ngskit4b/KAligner.cpp:82 Align,
 :9583 AlignRead; libkit4b/SfxArray.cpp:7838 AlignReads) while batching the

@@ -9,7 +9,7 @@ Fisher z-statistic for partner-vs-best. A replicate whose best match is
 not its labeled partner is an inconsistency.
 
 The all-pairs correlation is computed on device as one matmul of the
-standardized count matrix — [S, F] @ [F, S] runs on the MXU.
+standardized count matrix, [S, F] @ [F, S], in full float32 precision.
 """
 from __future__ import annotations
 
@@ -37,14 +37,16 @@ def load_counts_matrix(path):
 
 def pearson_matrix(counts: np.ndarray) -> np.ndarray:
     """All-pairs sample Pearson correlations from a [F, S] counts
-    matrix, as a single [S, S] device matmul (float32 accumulate)."""
+    matrix, as a single [S, S] device matmul in full float32 (a GPU
+    would otherwise take TF32 operands, which keep ~3 digits)."""
+    import jax
     import jax.numpy as jnp
 
     x = jnp.asarray(counts.T, jnp.float32)           # [S, F]
     x = x - x.mean(axis=1, keepdims=True)
     norm = jnp.sqrt((x * x).sum(axis=1, keepdims=True))
     x = x / jnp.maximum(norm, 1e-12)
-    r = x @ x.T                                      # MXU
+    r = jnp.matmul(x, x.T, precision=jax.lax.Precision.HIGHEST)
     return np.array(jnp.clip(r, -1.0, 1.0))         # host copy, writable
 
 

@@ -1,4 +1,4 @@
-"""Core DNA base codec for the TPU-native kit4b rebuild.
+"""Core DNA base codec for the kit4b rebuild.
 
 Base-code scheme is interoperable with the reference's ``etSeqBase``
 (reference: libkit4b/commdefs.h:75-87) so chromosome-boundary sentinel logic

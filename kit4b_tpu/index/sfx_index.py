@@ -1,4 +1,4 @@
-"""TPU-resident genome index: suffix array + k-mer bucket LUT.
+"""Device-resident genome index: suffix array + k-mer bucket LUT.
 
 Capability parity with the reference CSfxArray (libkit4b/SfxArray.h:97-209,
 SfxArray.cpp:1758 Finalise / :3309 IterateExacts / :7938 LocateFirstExact),

@@ -2,7 +2,7 @@
 
 CMAlignFile parity (libkit4b/MAlignFile.cpp: MAF-derived indexed `.algn`
 multialignment used by the conservation workflows; built by `genmafalgn`
-ngskit4b/CGenMAFAlgn.cpp). The TPU rebuild stores alignment blocks as code
+ngskit4b/CGenMAFAlgn.cpp). This rebuild stores alignment blocks as code
 matrices in a compressed .npz bundle: per block the reference row fixes the
 coordinate system (chrom, start, strand) and every species row is an
 etSeqBase vector with BASE_INDEL for gap columns — ready for vectorized

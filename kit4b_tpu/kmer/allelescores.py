@@ -33,7 +33,7 @@ Capability parity with CCallHaplotypes (ngskit4b/CallHaplotypes.cpp):
 The per-locus scoring is plain byte arithmetic over [G] uint8 arrays —
 bandwidth-bound, vectorized NumPy (one pass per src x ref pair per chrom;
 bin reduction via np.add.reduceat). This is a host-side analysis engine, not
-a TPU hot path.
+a device hot path.
 """
 from __future__ import annotations
 

@@ -6,9 +6,10 @@ ThreadedGHamDist:883): for every K-mer position p, the minimum Hamming
 distance to any *other* K-mer in the genome (sense) and to any reverse
 complement K-mer (antisense).
 
-TPU-native formulation: the reference decomposes the O(G^2) all-pairs sweep
-into independent O(G) passes, one per relative cursor offset; each pass here
-is a fixed-shape vector computation (shifted compare -> windowed sum via
+The default engine is the min-matmul formulation (hammings_mxu.py). The
+legacy sweep kept here follows the reference: it decomposes the O(G^2)
+all-pairs sweep into independent O(G) passes, one per relative cursor
+offset; each pass is a fixed-shape vector computation (shifted compare -> windowed sum via
 cumulative sums -> masked min), driven by lax.fori_loop on device. Crick
 passes reduce to Watson passes against the reverse-complemented genome (the
 anti-diagonal sweep hammings.cpp:3289 becomes a fixed offset after reversing
@@ -72,16 +73,15 @@ def hammings_exhaustive(genome_seq: np.ndarray, K: int,
                         *, antisense: bool = True,
                         node: int = 0, numnodes: int = 1,
                         progress_every: int = 0,
-                        use_kernel: bool | None = None,
                         legacy_sweep: bool = False,
                         chunk: int = 1 << 14) -> np.ndarray:
     """Minimum Hamming distance per K-mer start position (uint16, 0xFFFF
     where no valid K-mer).
 
-    Default engine: the MXU min-matmul formulation (hammings_mxu.py) — all
-    window pairs as one-hot matmuls with a fused running max-match, ~115x
-    the legacy rolling-offset sweep on a v5e chip. Node partitioning splits
-    partner-span ranges; merge partials with np.minimum (ePMmerge).
+    Default engine: the min-matmul formulation (hammings_mxu.py) — all
+    window pairs as one-hot int8 matrix products with a running max-match.
+    Node partitioning splits partner-span ranges; merge partials with
+    np.minimum (ePMmerge).
 
     legacy_sweep=True keeps the original per-offset rolling formulation
     (offset chunks round-robined over nodes) for cross-checking."""
@@ -93,13 +93,6 @@ def hammings_exhaustive(genome_seq: np.ndarray, K: int,
         return hammings_exhaustive_mxu(np.asarray(genome_seq), K,
                                        antisense=antisense, node=node,
                                        numnodes=numnodes)
-    if use_kernel:
-        # experimental 1-D Pallas sweep (hammings_kernel.py): correct under
-        # the interpreter but not compilable by this image's Mosaic
-        # (superseded by hammings_mxu; kept for reference)
-        from .hammings_kernel import hammings_exhaustive_tpu
-        return hammings_exhaustive_tpu(np.asarray(genome_seq), K,
-                                       antisense=antisense)
     g = jnp.asarray(np.ascontiguousarray(genome_seq, np.uint8))
     rc_np = np.where(genome_seq[::-1] < 4, 3 - genome_seq[::-1],
                      genome_seq[::-1]).astype(np.uint8)
@@ -266,8 +259,10 @@ def hammings_restricted(index, K: int, *, max_hamming: int = 3,
 
 
 def hammings_oracle(genome_seq: np.ndarray, K: int,
-                    antisense: bool = True) -> np.ndarray:
-    """Naive NumPy oracle for tests."""
+                    antisense: bool = True, positions=None) -> np.ndarray:
+    """Plain NumPy oracle: every window compared base by base with every
+    other window (and every reverse-complement window). positions: only
+    these window starts are computed; the others stay 0xFFFF."""
     g = np.asarray(genome_seq)
     G = len(g)
     sent = g >= dna.BASE_UNDEF  # UNDEF/INDEL/EOS/EOG all invalidate windows
@@ -279,17 +274,17 @@ def hammings_oracle(genome_seq: np.ndarray, K: int,
     out = np.full(G, BIG, np.uint16)
     rev = wins[:, ::-1]
     rc_wins = np.where(rev < 4, 3 - rev, rev)  # N and sentinels unchanged
-    for i in range(nk):
-        if not valid[i]:
+    vw = np.ascontiguousarray(wins[valid])
+    vrc = np.ascontiguousarray(rc_wins[valid])
+    vidx = np.nonzero(valid)[0]
+    for n, i in enumerate(vidx):
+        if positions is not None and i not in positions:
             continue
-        best = int(BIG)
-        for j in range(nk):
-            if not valid[j]:
-                continue
-            if j != i:
-                best = min(best, int((wins[i] != wins[j]).sum()))
-            if antisense:
-                best = min(best, int((wins[i] != rc_wins[j]).sum()))
+        d = (vw != vw[n]).sum(axis=1)
+        d[n] = BIG                  # the window itself
+        best = int(d.min()) if len(d) else int(BIG)
+        if antisense:
+            best = min(best, int((vrc != vw[n]).sum(axis=1).min()))
         out[i] = best
     return out
 

@@ -1,10 +1,10 @@
 """2-bit-packed extension scoring — bandwidth-optimal mismatch counting.
 
-TPU gathers cost ~per element on the XLA path, so the [B, nCand, L] byte
+Gathers cost ~per element on the XLA path, so the [B, nCand, L] byte
 gather dominated align time. This module packs 16 bases per uint32 word
 (genome once at index load; each read batch into all 16 alignment phases) so a
 candidate extension is NW = (L+30)//16 word gathers + XOR/popcount, a ~12x
-reduction in gathered elements and pure VPU compute after that.
+reduction in gathered elements and pure elementwise compute after that.
 
 Semantics: mismatch count over the L-base window, where any invalid base
 (N, chromosome sentinel, off-end) on either side counts as a mismatch — the

@@ -3,7 +3,7 @@
 Replaces the reference's per-read, per-core-window suffix-array walk
 (libkit4b/SfxArray.cpp:5806 LocateCoreMultiples + :7938 LocateFirstExact):
 
-  reference (scalar CPU)                 this module (vector TPU)
+  reference (scalar CPU)                 this module (vector device)
   -------------------------------------  -----------------------------------
   binary search per core window          direct-addressed k-mer LUT gather
   iterate <=MaxIter SA entries per core  fixed C candidates per core (masked)

@@ -2,11 +2,10 @@
 
 Bit-identical final results to seed_extend_v4.fast_pass_packed_v4 (see the
 fast_pass_packed_v5 docstring for the n_esc <= E precondition), with the
-tier-1 SA indirection REMOVED. Chip ablation (tools/profile_v4_ablate.py,
-forced-fetch protocol) attributes the v4 fused pass cost to three
-latency-bound HBM row gathers — LUT pair ~13 ms, SA ~20 ms, genome rows
-~18 ms per 98K-read batch; VPU work (compaction, dedup, extension math) is
-single-digit ms. v5 merges the first two: the bucket table stores its first
+tier-1 SA indirection REMOVED. The v4 fused pass is dominated by three
+latency-bound row gathers from device memory (LUT pair, SA, genome rows);
+the elementwise work (compaction, dedup, extension math) is small. v5
+merges the first two: the bucket table stores its first
 7 suffix positions INLINE, so one [D, B] row gather of [p0..p6, cnt]
 replaces the LUT pair gather AND the entire [NC, B] SA gather.
 

@@ -1,4 +1,4 @@
-"""pacbiokit4b-equivalent long-read toolkit, TPU-native.
+"""pacbiokit4b-equivalent long-read toolkit on device.
 
 Reference: /root/reference/pacbiokit4b (ecreads, contigs, eccontigs,
 swservice, kmerdist, filter — pacbiokit4b.cpp:85-94). The SW alignment

@@ -13,7 +13,7 @@ The reference fans SW jobs out to remote machines over its BKS TCP RPC
 (`--rmi`, BKSRequester.cpp); here the same jobs are device batches — see
 parallel/swservice.py for the multi-chip dispatcher.
 
-TPU shape: seeding is LUT gathers, SW is the [B, W] wavefront kernel; only
+Device shape: seeding is LUT gathers, SW is the [B, W] wavefront kernel; only
 candidate bookkeeping and the consensus walk stay on host.
 """
 from __future__ import annotations

@@ -5,7 +5,7 @@ AssembGraph.cpp: vertices/fwd+rev edges, containment removal, path
 extraction) and CPBECContigs (PBECContigs.cpp: contig polishing with
 corrected reads).
 
-TPU shape: overlap confirmation is the batched banded SW kernel; the graph
+Device shape: overlap confirmation is the batched banded SW kernel; the graph
 walk (greedy best-overlap layout) is host-side — candidate counts are tiny
 after correction. Both strands are handled by seeding each probe and its
 reverse complement against the read index."""

@@ -1,12 +1,12 @@
 """Batched banded affine-gap Smith-Waterman on device.
 
-TPU-native replacement for the reference's striped SW engine
+Device replacement for the reference's striped SW engine
 (pacbiokit4b/SSW.cpp CSSW::Align, per-thread CSWAlign instances
 SWAlign.h:82): instead of one sequence pair per CPU thread, a whole batch of
 (probe, target) pairs runs as one [B, W] wavefront — `lax.scan` walks probe
 rows, the band (width W) follows the expected diagonal, and the in-row
 gap-run recurrence (the classic "lazy-F" dependency) is resolved with an
-associative max-scan, so every op is a full-width VPU vector.
+associative max-scan, so every op is a full-width vector op.
 
 Scoring matches CSSW::SetScores semantics (SSW.cpp:331): match/mismatch,
 affine gaps costing open for the first base and ext for each later base

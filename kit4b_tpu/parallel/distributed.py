@@ -4,7 +4,8 @@ The reference's inter-machine story is static partition + filesystem merge
 (hammings -n/-N) and a bespoke TCP RPC (pacbiokit4b BKS). Here multi-host is
 the standard jax.distributed process group: every host runs the same
 program, `initialize()` wires the group, global device meshes span hosts
-(collectives ride ICI within a slice, DCN across), and input sharding gives
+(collectives ride the devices' own links within a host, the network
+across), and input sharding gives
 each host its slice of the readset — no bespoke sockets.
 
 Single-host degenerates gracefully (process_count == 1), so every driver can
@@ -19,8 +20,8 @@ def initialize(coordinator: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> tuple[int, int]:
     """Initialize jax.distributed from args or the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID; cloud TPU
-    autodetects all three). Returns (process_id, process_count)."""
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID).
+    Returns (process_id, process_count)."""
     import jax
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     want_procs = num_processes or int(

@@ -11,11 +11,10 @@ offset-sweep decomposition, ngskit4b/hammings.cpp:3183-3289):
   both strands — O(G/D) per device, so capacity scales with mesh size;
 - the partner *code blocks* rotate around the "sp" ring via
   `jax.lax.ppermute` (codes are ~25x smaller than the window one-hot,
-  so ICI traffic per step is B+K bytes, not B*5K);
+  so the traffic between devices per step is B+K bytes, not B*5K);
 - every step rebuilds the partner window one-hot locally (a gather +
-  compare, VPU-cheap) and feeds the SAME MXU min-matmul kernels as the
-  replicated engine (`kmer/hammings_mxu.py`), accumulating the running
-  min-Hamming;
+  compare) and feeds the same `max_matches` as the replicated engine
+  (`kmer/hammings_mxu.py`), accumulating the running min-Hamming;
 - the self-pair diagonal only exists on step 0 (partner block == own
   block), where the local diagonal IS the global diagonal, so the
   unmodified static-diag kernels apply: step 0 runs diag=True, the
@@ -27,15 +26,13 @@ meshes in tests/test_hammings_ring.py.
 """
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..kmer.hammings_mxu import (OUT_BIG, _minmm_pallas, _minmm_xla,
-                                 _round_up)
+from ..kmer.hammings_mxu import (OUT_BIG, PART, _round_up, max_matches,
+                                 max_matches_impl)
 
 
 def _block_onehot(codes: jnp.ndarray, K: int, B: int):
@@ -60,8 +57,7 @@ def _block_onehot(codes: jnp.ndarray, K: int, B: int):
 
 
 def make_hammings_ring(mesh: Mesh, G: int, K: int, *,
-                       antisense: bool = True, T: int = 1024,
-                       S: int = 1024, use_pallas: bool | None = None):
+                       antisense: bool = True):
     """Build the jitted ring engine.
 
     Input: (sense_blocks [D, B+K] uint8, rc_blocks [D, B+K] uint8),
@@ -69,10 +65,10 @@ def make_hammings_ring(mesh: Mesh, G: int, K: int, *,
     slicing. Output: hmin [D*B] int32 (min window-Hamming per genome
     position, pre-validity-mask; host applies the OUT_BIG mask)."""
     D = mesh.devices.size
-    B = _round_up(-(-max(G, 1) // D), max(T, S))
-    if use_pallas is None:
-        use_pallas = jax.default_backend() not in ("cpu",)
+    B = _round_up(-(-max(G, 1) // D), PART)
+    impl = max_matches_impl()
     perm = [(j, (j - 1) % D) for j in range(D)]   # device i receives i+1
+    zero = np.zeros(1, np.int32)
 
     def _pair_min(Wo, codes_pair, diag: bool):
         """min-Hamming of own rows vs both strands of a partner code
@@ -83,20 +79,12 @@ def make_hammings_ring(mesh: Mesh, G: int, K: int, *,
         if antisense:
             Wrc, _ = _block_onehot(codes_pair[1], K, B)
             parts.append((Wrc, False))
-        if use_pallas:
-            maxm = None
-            for W_part, dg in parts:
-                p = _minmm_pallas(Wo, W_part, K, diag=dg, span_lo=0,
-                                  span_cnt=B // S, T=T, S=S)
-                m = jnp.max(p, axis=1)
-                maxm = m if maxm is None else jnp.maximum(maxm, m)
-            return K - maxm
-        h = None
+        maxm = None
         for W_part, dg in parts:
-            m = _minmm_xla(Wo, W_part, K=K, diag=dg, span_lo=0,
-                           span_cnt=B // S, S=S)
-            h = m if h is None else jnp.minimum(h, m)
-        return h
+            m = max_matches(Wo, W_part, part_lo=0, part_cnt=B, diag=dg,
+                            row_base=zero, impl=impl)
+            maxm = m if maxm is None else jnp.maximum(maxm, m)
+        return K - maxm
 
     def _local(sb, rb):
         # shapes inside shard_map: [1, B+K] each
@@ -121,9 +109,7 @@ def make_hammings_ring(mesh: Mesh, G: int, K: int, *,
 
 
 def hammings_ring(genome_seq: np.ndarray, K: int, *,
-                  antisense: bool = True, devices=None,
-                  T: int = 1024, S: int = 1024,
-                  use_pallas: bool | None = None) -> np.ndarray:
+                  antisense: bool = True, devices=None) -> np.ndarray:
     """Ring-parallel exhaustive hammings. Same output contract as
     kmer.hammings_mxu.hammings_exhaustive_mxu (uint16 [G])."""
     devices = devices if devices is not None else jax.devices()
@@ -134,7 +120,7 @@ def hammings_ring(genome_seq: np.ndarray, K: int, *,
     out = np.full(G, OUT_BIG, np.uint16)
     if G - K + 1 <= 0:
         return out
-    B = _round_up(-(-G // D), max(T, S))
+    B = _round_up(-(-G // D), PART)
     Gp = B * D
 
     ext = np.concatenate([g, np.full(Gp + K - G, 0x0F, np.uint8)])
@@ -153,8 +139,7 @@ def hammings_ring(genome_seq: np.ndarray, K: int, *,
     if nvalid == 0 or (not antisense and nvalid < 2):
         return out
 
-    fn, B = make_hammings_ring(mesh, G, K, antisense=antisense, T=T, S=S,
-                               use_pallas=use_pallas)
+    fn, B = make_hammings_ring(mesh, G, K, antisense=antisense)
     sh = NamedSharding(mesh, P("sp"))
     hmin = np.asarray(jax.device_get(fn(
         jax.device_put(sense_blocks, sh), jax.device_put(rc_blocks, sh))))

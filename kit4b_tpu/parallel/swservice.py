@@ -3,7 +3,7 @@
 The reference offloads SW jobs to remote provider machines over a bespoke
 framed TCP protocol — session negotiation, keepalives, 64MB frames, up to
 128 service instances per provider (pacbiokit4b/BKScommon.h:27-99,
-BKSRequester.cpp, BKSProvider.cpp). On TPU the same role — "align this
+BKSRequester.cpp, BKSProvider.cpp). On a device mesh the same role — "align this
 stream of (probe, target) pairs somewhere else, fast" — is a device-mesh
 batch dispatcher: jobs are packed into fixed-shape batches, sharded over a
 "dp" mesh axis with shard_map, and every chip runs the banded SW wavefront

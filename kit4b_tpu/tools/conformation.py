@@ -11,7 +11,7 @@ ORChID — 22 values) give per-step conformational values; sequences are
 profiled by sliding-octamer lookup.
 
 The octamer lookup is one vectorized gather: codes -> base-4 octamer
-indices -> value table, the TPU-friendly reshape of the reference's
+indices -> value table, the vectorized reshape of the reference's
 per-position StructValue() loop (Twister.cpp:735).
 """
 from __future__ import annotations

@@ -9,7 +9,8 @@ discover linkages — sets of feature columns whose class values
 co-occur at or above a threshold in at least MinLinkedRows rows).
 
 The pairwise co-occurrence count used for linkage seeding is one
-boolean matmul ([R, F]^T @ [R, F]) — MXU-friendly on device.
+0/1 matmul ([R, F]^T @ [R, F]) on device, int8 operands with int32
+accumulation, so it is exact by type.
 """
 from __future__ import annotations
 
@@ -69,8 +70,9 @@ def find_feature_linkages(matrix: np.ndarray, feat_names: list,
     keep = np.nonzero(support >= min_rows)[0]
     if len(keep) < num_linked:
         return []
-    h = jnp.asarray(hot[:, keep], jnp.float32)
-    co = np.asarray(h.T @ h).astype(np.int64)        # [K, K] co-support
+    h = jnp.asarray(hot[:, keep], jnp.int8)
+    co = np.asarray(jnp.matmul(h.T, h, preferred_element_type=jnp.int32)
+                    ).astype(np.int64)               # [K, K] co-support
     out, seen = [], set()
     order = np.argsort(-np.diag(co))
     for si in order:

@@ -3,7 +3,8 @@
 The reference's observability is CDiagnostics leveled logging + CStopWatch +
 an SQLite experiment-summary DB (libkit4b/Diagnostics.cpp, SURVEY.md §5.5);
 here: stdlib logging, phase timers, JSONL run records, and the XLA persistent
-compile cache (first TPU compile is expensive; cached thereafter).
+compile cache (a cold compile of the alignment graphs takes tens of seconds;
+cached thereafter).
 """
 from __future__ import annotations
 
@@ -16,15 +17,30 @@ from contextlib import contextmanager
 log = logging.getLogger("kit4b_tpu")
 
 
-def enable_compile_cache(path: str | None = None) -> None:
+CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+DEFAULT_CACHE_DIR = os.path.join(CHECKOUT, ".jax_cache")
+
+
+def compile_cache_dir(environ=os.environ) -> str:
+    """Where the persistent compile cache lives: JAX_COMPILATION_CACHE_DIR
+    when set, otherwise the fixed `.jax_cache` inside the checkout (a fixed
+    path, so that later processes hit the same entries)."""
+    return environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_CACHE_DIR
+
+
+def enable_compile_cache() -> str:
+    """Turn on the persistent compile cache and return its directory. JAX
+    reads JAX_COMPILATION_CACHE_DIR itself; only without it is the
+    directory set here."""
     import jax
-    path = path or os.environ.get(
-        "KIT4B_TPU_XLA_CACHE",
-        os.path.expanduser("~/.cache/kit4b_tpu_xla"))
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    path = compile_cache_dir()
+    if "JAX_COMPILATION_CACHE_DIR" not in os.environ:
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
+    return path
 
 
 def setup_logging(level: str = "info", logfile: str | None = None) -> None:

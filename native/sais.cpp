@@ -1,6 +1,6 @@
 // SA-IS suffix array construction (Nong/Zhang/Chan induced-sorting algorithm).
 //
-// TPU-native kit4b rebuild: replaces the reference's multithreaded comparison
+// kit4b rebuild: replaces the reference's multithreaded comparison
 // quicksort over suffix offsets (reference: libkit4b/SfxArray.cpp:9739 QSortSeq
 // with QSortSeqCmp32/40) with an O(n) builder. Equivalence only requires the
 // sorted order, which is unique for a fixed text, so any correct SA builder

@@ -43,19 +43,6 @@ def test_with_n_bases():
     np.testing.assert_array_equal(got[: n - K + 1], want[: n - K + 1])
 
 
-def test_kernel_interpret_matches_oracle():
-    """Experimental Pallas kernel (interpret mode; hardware blocked on
-    Mosaic dynamic-rotate support)."""
-    from kit4b_tpu.kmer.hammings_kernel import hammings_exhaustive_tpu
-    rng = np.random.default_rng(5)
-    g = rng.integers(0, 4, 1200).astype(np.uint8)
-    g[600] = dna.BASE_EOS
-    got = hammings_exhaustive_tpu(g, 25, tile=512, span=512, interpret=True)
-    want = hammings.hammings_oracle(g, 25)
-    np.testing.assert_array_equal(got[:1176].astype(int),
-                                  want[:1176].astype(int))
-
-
 def test_restricted_matches_oracle_capped():
     from kit4b_tpu.index.sfx_index import SfxIndex
     from kit4b_tpu.io.fasta import Genome
@@ -171,3 +158,14 @@ def test_hmg_binary_roundtrip_and_cli_merge(tmp_path):
     assert names_r == names_a
     for a, r in zip(dists_a, dists_r):
         np.testing.assert_array_equal(a, r)
+
+
+def test_oracle_at_positions_matches_full_oracle():
+    g = _genome(400, seed=4)
+    full = hammings.hammings_oracle(g, 9)
+    pos = {0, 17, 199, 390}
+    part = hammings.hammings_oracle(g, 9, positions=pos)
+    idx = sorted(pos)
+    np.testing.assert_array_equal(part[idx], full[idx])
+    rest = np.setdiff1d(np.arange(len(g)), idx)
+    assert (part[rest] == hammings.BIG).all()

@@ -1,5 +1,5 @@
 """Ring-rotation hammings (parallel/hammings_ring.py): bit-identity with
-the replicated MXU engine on 2/4/8-device CPU meshes."""
+the replicated min-matmul engine on 2/4/8-device CPU meshes."""
 import numpy as np
 import pytest
 
@@ -22,10 +22,9 @@ def _genome(n, seed=7, with_n=True):
 def test_ring_matches_replicated(ndev):
     g = _genome(6000)
     K = 13
-    want = hammings_exhaustive_mxu(g, K, antisense=True, use_pallas=False)
+    want = hammings_exhaustive_mxu(g, K, antisense=True)
     devs = jax.devices()[:ndev]
-    got = hammings_ring(g, K, antisense=True, devices=devs,
-                        use_pallas=False)
+    got = hammings_ring(g, K, antisense=True, devices=devs)
     assert got.dtype == np.uint16 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
 
@@ -33,9 +32,8 @@ def test_ring_matches_replicated(ndev):
 def test_ring_watson_only():
     g = _genome(4000, seed=11)
     K = 25
-    want = hammings_exhaustive_mxu(g, K, antisense=False, use_pallas=False)
-    got = hammings_ring(g, K, antisense=False, devices=jax.devices()[:4],
-                        use_pallas=False)
+    want = hammings_exhaustive_mxu(g, K, antisense=False)
+    got = hammings_ring(g, K, antisense=False, devices=jax.devices()[:4])
     np.testing.assert_array_equal(got, want)
 
 
@@ -47,16 +45,14 @@ def test_ring_repeat_dense():
     g[100:300] = unit
     g[3100:3300] = unit                      # cross-block exact copy
     K = 17
-    want = hammings_exhaustive_mxu(g, K, antisense=True, use_pallas=False)
-    got = hammings_ring(g, K, antisense=True, devices=jax.devices()[:8],
-                        use_pallas=False)
+    want = hammings_exhaustive_mxu(g, K, antisense=True)
+    got = hammings_ring(g, K, antisense=True, devices=jax.devices()[:8])
     np.testing.assert_array_equal(got, want)
     assert (want[100:300 - K + 1] == 0).all()
 
 
 def test_ring_tiny_edge():
     g = _genome(30, with_n=False)
-    got = hammings_ring(g, 25, devices=jax.devices()[:2],
-                        use_pallas=False)
-    want = hammings_exhaustive_mxu(g, 25, use_pallas=False)
+    got = hammings_ring(g, 25, devices=jax.devices()[:2])
+    want = hammings_exhaustive_mxu(g, 25)
     np.testing.assert_array_equal(got, want)

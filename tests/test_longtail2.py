@@ -1,6 +1,7 @@
 """pangenome, seghaplotypes, gbsmapsnps, dgts, rnaexpr, genmlds,
 sarscov2ml, alignsbs."""
 import numpy as np
+import pytest
 
 from kit4b_tpu import dna
 from kit4b_tpu.cli import main
@@ -317,3 +318,27 @@ def test_gbsmapsnps_progeny_reports_and_nm(tmp_path):
     assert p2[1:] == ['7,"P2","chr1",100,1,1']
     alln = (tmp_path / "hap.csv.progeny.7.all.csv").read_text()
     assert alln.count("\n") == 4  # header + 3 informative rows
+
+
+@pytest.mark.parametrize("n_feat,n_samp", [(60, 4), (500, 12), (2000, 7)])
+def test_pearson_matrix_matches_corrcoef(n_feat, n_samp):
+    from kit4b_tpu.align.rnaexpr import pearson_matrix
+    rng = np.random.default_rng(n_feat)
+    base = rng.random((n_feat, 1)) * 100
+    counts = base + rng.normal(0, 5, (n_feat, n_samp)) * rng.random(n_samp)
+    want = np.corrcoef(counts.T)
+    np.testing.assert_allclose(pearson_matrix(counts), want, rtol=0,
+                               atol=1e-6)
+
+
+def test_linkage_cosupport_is_exact_count():
+    """The co-support matmul counts rows exactly: a linkage supported by
+    exactly min_rows rows is found, one row fewer is not."""
+    from kit4b_tpu.tools.mlds import find_feature_linkages
+    mat = np.zeros((300, 5), int)
+    mat[:257, :3] = 4          # f0..f2 co-occur in 257 rows
+    mat[::2, 3:] = 4
+    names = [f"f{i}" for i in range(5)]
+    assert find_feature_linkages(mat, names, num_linked=3, min_rows=257)
+    assert not find_feature_linkages(mat, names, num_linked=3,
+                                     min_rows=258)
